@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Dump XLA cost analysis of the headline rollout step (TPU compile).
+"""Dump XLA cost analysis of the headline rollout step (default backend).
 
 Reports bytes-accessed / flops per lockstep step and the largest
 intermediates, to direct optimisation at the real bottleneck.
@@ -9,6 +9,9 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from twixt_for_open_spiel_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp

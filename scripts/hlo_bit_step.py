@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Dump the optimized HLO of one bitboard rollout step (TPU compile):
+"""Dump the optimized HLO of one bitboard rollout step (default backend):
 fusion kernels sorted by output bytes, to find unfused compid passes."""
 
 import os
@@ -7,7 +7,9 @@ import re
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
+from twixt_for_open_spiel_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp

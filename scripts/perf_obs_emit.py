@@ -25,8 +25,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from twixt_for_open_spiel_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp
@@ -87,44 +88,8 @@ def make_run(variant):
     return run
 
 
-def bench_fused(tile, launches=256):
-    """Fused Pallas rollout emitting the packed obs stream per step."""
-    from twixt_for_open_spiel_tpu.ops.fused_bit_rollout import (
-        fused_bit_rollout,
-    )
-
-    state0 = bit_reset(N, BATCH)
-    st, stats, obs = fused_bit_rollout(
-        0, N, CHUNK, state0, tile=tile, emit_obs=True
-    )
-    np.asarray(stats["episodes"])
-    st = state0
-    t0 = time.perf_counter()
-    for i in range(launches):
-        st, stats, obs = fused_bit_rollout(
-            i + 1, N, CHUNK, st, tile=tile, emit_obs=True
-        )
-        del obs
-    np.asarray(stats["episodes"])
-    dt = time.perf_counter() - t0
-    rate = BATCH * CHUNK * launches / dt
-    print(
-        f"[obs-emit fused(tile={tile})] {rate:,.0f} env-steps/s "
-        f"({dt:.2f}s)",
-        file=sys.stderr,
-    )
-
-
 def main():
     print(f"backend={jax.default_backend()}", file=sys.stderr)
-    if "--fused" in sys.argv:
-        for tile in (512, 1024, 2048):
-            try:
-                bench_fused(tile)
-            except Exception as e:
-                print(f"[obs-emit fused(tile={tile})] FAILED: "
-                      f"{type(e).__name__}: {str(e)[:300]}", file=sys.stderr)
-        return
     state0 = bit_reset(N, BATCH)
     for variant in ("none", "lanesflat", "flat"):
         run = make_run(variant)

@@ -114,7 +114,7 @@ def test_board_masks_counts():
 
 
 def test_board_consts_match_numpy_masks():
-    # the jnp (Pallas-safe) constant builder must equal the numpy reference
+    # the jnp constant builder must equal the numpy reference
     import numpy as np
 
     from twixt_for_open_spiel_tpu.ops.state import board_consts

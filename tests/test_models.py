@@ -606,8 +606,8 @@ def test_selfplay_chunk_gumbel(params):
 
 
 def test_train_microbatch_matches_monolithic():
-    """The microbatched train step (the big-board HBM valve: board 24's
-    chunk-56 step OOMs monolithic) must reproduce the monolithic
+    """The microbatched train step (the big-board memory valve: board 24's
+    chunk-56 step did not fit a 16 GB card monolithic) must reproduce the monolithic
     gradient EXACTLY up to float re-association: same loss metrics,
     same updated params, for every divisor K of T — including samples
     where finished frames are unevenly distributed over time slices

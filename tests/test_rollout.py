@@ -17,7 +17,7 @@ from twixt_for_open_spiel_tpu.ops.state import legal_mask_flat
 
 def test_batch_reset_shapes():
     s = batch_reset(5, 16)
-    # trailing env axis on every leaf (lane-dim = batch on TPU)
+    # trailing env axis on every leaf
     assert s.color.shape == (11, 11, 16)
     assert s.legal.shape == (2, 11, 11, 16)
     assert s.current_player.shape == (16,)

@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh
 (SURVEY.md §4, multi-node note): the same shard_map code path used on a
-real multi-chip/multi-host TPU mesh.
+real multi-card/multi-host GPU mesh.
 """
 
 import jax
@@ -32,10 +32,10 @@ def test_mesh_has_8_devices():
 
 
 def test_hosts_major_order_mocked_pod():
-    """Unit-test the multi-host env-mesh layout logic without a pod: the
-    device order must be hosts-major (contiguous per-host blocks, hosts in
-    process order, chips in id order) so env-axis collectives do their big
-    combines over ICI and only per-host partials cross DCN."""
+    """Unit-test the multi-host env-mesh layout logic without a cluster:
+    the device order must be hosts-major (contiguous per-host blocks, hosts
+    in process order, cards in id order) so env-axis collectives do their
+    big combines inside a host and only per-host partials cross hosts."""
     from twixt_for_open_spiel_tpu.parallel import hosts_major_order
 
     class Dev:
@@ -45,7 +45,7 @@ def test_hosts_major_order_mocked_pod():
         def __repr__(self):
             return f"d{self.process_index}.{self.id}"
 
-    # scrambled 4-host x 4-chip pod: global ids interleaved across hosts
+    # scrambled 4-host x 4-card cluster: global ids interleaved across hosts
     devs = [Dev(did % 4, did) for did in range(16)]
     ordered = hosts_major_order(devs)
     assert [d.process_index for d in ordered] == sorted(
@@ -150,7 +150,7 @@ def test_dist_train_step_matches_local():
     # microbatch=1 is the plain shard combine; microbatch=3 additionally
     # splits each shard's chunk into time-slices, so the surrogate
     # denominator must telescope through BOTH the slice mean and the
-    # shard pmean (the board-24 HBM-valve configuration)
+    # shard pmean (the board-24 memory-valve configuration)
     for microbatch in (1, 3):
         trainer, _ = make_distributed_train_step(
             net.apply, opt, microbatch=microbatch
@@ -247,28 +247,3 @@ def test_sharded_bit_rollout_runs_and_reduces():
         np.asarray(s.data).tobytes() for s in final.red.addressable_shards
     }
     assert len(reds) > 1
-
-
-def test_sharded_fused_rollout_matches_xla_bitwise():
-    """The fused Pallas kernel inside shard_map (interpret mode on the CPU
-    mesh) must produce bit-identical sharded trajectories to the XLA path."""
-    from twixt_for_open_spiel_tpu.parallel import (
-        make_sharded_bit_rollout,
-        sharded_bit_reset,
-    )
-
-    n, b, steps = 5, 8 * 128, 12
-    roll_x, mesh = make_sharded_bit_rollout(n, steps)
-    roll_f, _ = make_sharded_bit_rollout(
-        n, steps, mesh, fused_tile=128, interpret=True
-    )
-    state = sharded_bit_reset(n, b, mesh)
-    fx, sx = roll_x(7, state)
-    ff, sf = roll_f(7, state)
-    assert int(sx["episodes"]) == int(sf["episodes"])
-    np.testing.assert_array_equal(
-        np.asarray(sx["results"]), np.asarray(sf["results"])
-    )
-    for a, b_ in zip(jax.tree_util.tree_leaves(fx),
-                     jax.tree_util.tree_leaves(ff)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b_))

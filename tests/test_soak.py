@@ -1,7 +1,7 @@
 """Wide parity soak (VERDICT round-1 item 4).
 
 Two layers, mirroring the reference's RandomSimTest breadth
-(twixt_test.cc:25-29) at TPU-framework scale:
+(twixt_test.cc:25-29) at framework scale:
 
 1. ``test_bit_replay_matches_native_engine_soak`` — EVERY board size 5-24,
    256 games per size in one batched replay: the native C engine

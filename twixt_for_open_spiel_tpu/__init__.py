@@ -1,7 +1,7 @@
-"""twixt_for_open_spiel_tpu — a TPU-native TwixT environment engine in JAX.
+"""twixt_for_open_spiel_tpu — a TwixT environment engine in JAX.
 
 Brand-new implementation of the game semantics of the OpenSpiel TwixT C++
-plugin (stevens68/TwixT_for_open_spiel), re-designed TPU-first: fixed-shape
+plugin (stevens68/TwixT_for_open_spiel), re-designed for accelerators: fixed-shape
 integer tensor state, branch-free jit/vmap-compatible transitions, sharded
 batched environments over device meshes, and an AlphaZero-style self-play
 stack on top.  See SURVEY.md for the layer map and component inventory.

@@ -1,6 +1,6 @@
 """Arena CLI: pit two checkpoints (or a checkpoint vs random) head to head.
 
-TPU-native analogue of evaluating OpenSpiel bots by playing matches
+Batched analogue of evaluating OpenSpiel bots by playing matches
 (reference README.md:38-40's mcts_example two-bot loop): a whole batch of
 games runs in lockstep on the bitboard engine, one batched MCTS per move
 serving both sides (models/arena.py).
@@ -8,7 +8,7 @@ serving both sides (models/arena.py).
 Usage:
     python -m twixt_for_open_spiel_tpu.examples.arena \
         --board_size=12 --batch=128 --simulations=64 \
-        --ckpt_a=/tmp/twixt_az [--ckpt_b=/tmp/twixt_az_old | --random_b] \
+        --ckpt_a=checkpoints/twixt_az [--ckpt_b=checkpoints/twixt_az_old | --random_b] \
         --channels=64 --blocks=4
 """
 
@@ -27,6 +27,7 @@ from twixt_for_open_spiel_tpu.models import (
     make_optimizer,
 )
 from twixt_for_open_spiel_tpu.utils import serialization
+from twixt_for_open_spiel_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main(argv=None):
@@ -94,4 +95,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

@@ -15,6 +15,7 @@ import argparse
 import random
 
 from twixt_for_open_spiel_tpu.game import load_game
+from twixt_for_open_spiel_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main(argv=None):
@@ -42,4 +43,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

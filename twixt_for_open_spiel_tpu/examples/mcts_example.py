@@ -11,7 +11,7 @@ README.md:38-40):
 
 Players: "mcts" (jitted batched-tree MCTS with the random-rollout leaf
 evaluator — the vanilla-MCTS mode matching OpenSpiel's example) or
-"random".  The search itself is the TPU-resident models/mcts.py engine run
+"random".  The search itself is the device-resident models/mcts.py engine run
 at batch 1.
 """
 
@@ -25,6 +25,7 @@ import numpy as np
 
 from twixt_for_open_spiel_tpu.game import load_game
 from twixt_for_open_spiel_tpu.models import mcts
+from twixt_for_open_spiel_tpu.utils.compile_cache import enable_compile_cache
 
 
 def make_mcts_player(board_size, max_simulations, rollout_count, seed):
@@ -94,4 +95,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

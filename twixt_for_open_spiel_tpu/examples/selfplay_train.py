@@ -7,18 +7,17 @@ mesh, checkpoints via utils/serialization.
 Usage (any mesh size, incl. the virtual 8-device CPU mesh):
     python -m twixt_for_open_spiel_tpu.examples.selfplay_train \
         --board_size=12 --batch=256 --chunk_steps=16 --simulations=64 \
-        --iterations=10 --checkpoint_dir=/tmp/twixt_az
+        --iterations=10 --checkpoint_dir=checkpoints/twixt_az
 
 Multi-host (N>=2): run the SAME command on every host, adding the cluster
 spec (or export JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-JAX_PROCESS_ID; on Cloud TPU pod slices the flags can be omitted entirely —
-the topology is auto-detected):
+JAX_PROCESS_ID):
     python -m twixt_for_open_spiel_tpu.examples.selfplay_train \
         --coordinator=10.0.0.1:8476 --num_processes=4 --process_id=$RANK \
         --board_size=12 --batch=8192 ...
 ``--batch`` is the GLOBAL env batch; the hosts-major env mesh shards it so
-each host steps its local chips' shard and gradient psums do their big
-combines over ICI (parallel/mesh.py).
+each host steps its local cards' shard and gradient psums do their big
+combines over NVLink (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -38,12 +37,15 @@ from twixt_for_open_spiel_tpu.parallel import (
     make_distributed_selfplay,
     make_distributed_train_step,
     make_env_mesh,
+    replicated,
     sharded_bit_reset,
 )
 from twixt_for_open_spiel_tpu.utils import serialization
+from twixt_for_open_spiel_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main(argv=None):
+    """Train; returns one dict per iteration run (loss terms, frames/s)."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--board_size", type=int, default=12)
     ap.add_argument("--batch", type=int, default=256)
@@ -98,9 +100,13 @@ def main(argv=None):
         if restored is not None:
             params, opt_state, start_iter = restored
             print(f"restored checkpoint at iteration {start_iter}")
+    # placed as the train step returns them, so the second iteration does
+    # not compile selfplay and trainer again for another input sharding
+    params, opt_state = jax.device_put((params, opt_state), replicated(mesh))
 
     state = sharded_bit_reset(n, args.batch, mesh)
     key = jax.random.PRNGKey(args.seed + 1)
+    history = []
     for it in range(start_iter, args.iterations):
         t0 = time.perf_counter()
         key, k = jax.random.split(key)
@@ -108,20 +114,27 @@ def main(argv=None):
         params, opt_state, metrics = trainer(params, opt_state, sample)
         jax.block_until_ready(params)
         dt = time.perf_counter() - t0
-        frames = args.batch * args.chunk_steps
+        row = {name: float(metrics[name])
+               for name in ("loss", "policy_loss", "value_loss",
+                            "train_frames")}
+        row.update(iteration=it, seconds=dt,
+                   moves_per_s=args.batch * args.chunk_steps / dt)
+        history.append(row)
         if is_lead:
             print(
-                f"iter {it}: loss={float(metrics['loss']):.4f} "
-                f"policy={float(metrics['policy_loss']):.4f} "
-                f"value={float(metrics['value_loss']):.4f} "
-                f"train_frames={int(metrics['train_frames'])} "
-                f"({frames / dt:,.0f} mcts-env-steps/s)"
+                f"iter {it}: loss={row['loss']:.4f} "
+                f"policy={row['policy_loss']:.4f} "
+                f"value={row['value_loss']:.4f} "
+                f"train_frames={int(row['train_frames'])} "
+                f"({row['moves_per_s']:,.0f} mcts-env-steps/s)"
             )
         if args.checkpoint_dir and is_lead:
             serialization.save_training(
                 args.checkpoint_dir, params, opt_state, it + 1
             )
+    return history
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

@@ -1,6 +1,6 @@
 """OpenSpiel-flavoured host API: ``TwixTGame`` / ``TwixTState`` / ``load_game``.
 
-TPU-native analogue of the reference's L3 game adapter and registration
+Array-engine analogue of the reference's L3 game adapter and registration
 (SURVEY.md C14/C15; reference twixt.h:31-146, twixt.cc:34-145): a thin host
 layer over the jitted tensor core in ``ops/``.  State strings, parameter
 parsing and the legality gate live here; every transition and observation is

@@ -2,7 +2,7 @@
 
 The OpenSpiel ecosystem evaluates agents by playing matches through the
 State API one game at a time (e.g. ``mcts_example``'s two-bot loop,
-reference README.md:38-40); the TPU-native equivalent plays a whole BATCH
+reference README.md:38-40); the batched equivalent plays a whole BATCH
 of games in lockstep on the bitboard engine, with one array-of-trees MCTS
 per move for all boards at once.
 

@@ -1,44 +1,92 @@
 """AlphaZero-style policy/value network for TwixT observations.
 
 The learner of the self-play stack (BASELINE.json config 5).  The reference
-has no model at all (SURVEY.md §5, long-context note) — this is new,
-TPU-first framework surface:
+has no model at all (SURVEY.md §5, long-context note); this is new
+framework surface, written in plain ``jax.numpy``/``lax``:
 
-  * bfloat16 compute / float32 params, so convolutions land on the MXU;
-  * NHWC layout with channel counts that are multiples of the 128-lane
-    register width;
-  * the 12-plane CHW observation (ops/observe.py) is transposed once at the
-    input; the policy head emits ``board_size**2`` masked logits matching the
-    engine's action space (corner/off-limit actions are masked by the
-    caller using the state's legal mask).
+  * bfloat16 compute / float32 params: the convolutions and dense layers
+    take bf16 operands, which puts them on the GPU's tensor cores (cuDNN
+    and cuBLAS accumulate bf16 products in float32);
+  * NHWC layout; the 12-plane CHW observation (ops/observe.py) is
+    transposed once at the input; the policy head emits ``board_size**2``
+    masked logits matching the engine's action space (corner/off-limit
+    actions are masked by the caller using the state's legal mask).
+
+Parameters are a plain nested dict ``{"params": {...}}`` whose layer names
+(``Conv_0``, ``LayerNorm_0``, ``ResBlock_0`` ...) and initialisers (lecun
+normal kernels, zero biases, unit LayerNorm scales, eps 1e-6) are the
+ones the net had as a module of a layers library; tests/test_network.py
+pins this net to that module's numbers on the same tree.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from twixt_for_open_spiel_tpu.ops import geometry as geo
 
+LN_EPS = 1e-6
+HEAD_CHANNELS = 32
+VALUE_HIDDEN = 256
 
-class ResBlock(nn.Module):
-    channels: int
-    dtype: Any = jnp.bfloat16
-
-    @nn.compact
-    def __call__(self, x):
-        y = nn.Conv(self.channels, (3, 3), padding="SAME", dtype=self.dtype)(x)
-        y = nn.LayerNorm(dtype=self.dtype)(y)
-        y = nn.relu(y)
-        y = nn.Conv(self.channels, (3, 3), padding="SAME", dtype=self.dtype)(y)
-        y = nn.LayerNorm(dtype=self.dtype)(y)
-        return nn.relu(x + y)
+_lecun_normal = jax.nn.initializers.lecun_normal()
 
 
-class AZNet(nn.Module):
+def _conv_init(key, kh, cin, cout):
+    return {
+        "kernel": _lecun_normal(key, (kh, kh, cin, cout), jnp.float32),
+        "bias": jnp.zeros((cout,), jnp.float32),
+    }
+
+
+def _dense_init(key, din, dout, zero=False):
+    kernel = (
+        jnp.zeros((din, dout), jnp.float32)
+        if zero
+        else _lecun_normal(key, (din, dout), jnp.float32)
+    )
+    return {"kernel": kernel, "bias": jnp.zeros((dout,), jnp.float32)}
+
+
+def _ln_init(c):
+    return {"scale": jnp.ones((c,), jnp.float32),
+            "bias": jnp.zeros((c,), jnp.float32)}
+
+
+def _conv(p, x, dtype):
+    y = lax.conv_general_dilated(
+        x.astype(dtype),
+        p["kernel"].astype(dtype),
+        window_strides=(1, 1),
+        padding="SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+    )
+    return y + p["bias"].astype(dtype)
+
+
+def _dense(p, x, dtype, precision=None):
+    y = jnp.dot(x.astype(dtype), p["kernel"].astype(dtype),
+                precision=precision)
+    return y + p["bias"].astype(dtype)
+
+
+def _layer_norm(p, x, dtype):
+    """LayerNorm over the last axis with float32 statistics
+    (var = E[x^2] - E[x]^2, clipped at 0)."""
+    xf = x.astype(jnp.float32)
+    mean = xf.mean(-1, keepdims=True)
+    var = jnp.maximum(0.0, (xf * xf).mean(-1, keepdims=True) - mean * mean)
+    y = (xf - mean) * (lax.rsqrt(var + LN_EPS) * p["scale"]) + p["bias"]
+    return y.astype(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class AZNet:
     """Policy/value net over the [12, N, N-2] observation tensor."""
 
     board_size: int
@@ -46,63 +94,77 @@ class AZNet(nn.Module):
     blocks: int = 6
     dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, obs) -> Tuple[jnp.ndarray, jnp.ndarray]:
-        # obs: [B, 12, N, N-2] (CHW from ops/observe.py) -> NHWC
-        x = jnp.transpose(obs, (0, 2, 3, 1)).astype(self.dtype)
-        x = nn.Conv(self.channels, (3, 3), padding="SAME", dtype=self.dtype)(x)
-        x = nn.LayerNorm(dtype=self.dtype)(x)
-        x = nn.relu(x)
-        for _ in range(self.blocks):
-            x = ResBlock(self.channels, self.dtype)(x)
+    def init(self, key) -> dict:
+        n, c = self.board_size, self.channels
+        flat = HEAD_CHANNELS * n * (n - 2)
+        keys = iter(jax.random.split(key, 2 * self.blocks + 5))
+        p = {"Conv_0": _conv_init(next(keys), 3, geo.NUM_PLANES, c),
+             "LayerNorm_0": _ln_init(c)}
+        for i in range(self.blocks):
+            p[f"ResBlock_{i}"] = {
+                "Conv_0": _conv_init(next(keys), 3, c, c),
+                "LayerNorm_0": _ln_init(c),
+                "Conv_1": _conv_init(next(keys), 3, c, c),
+                "LayerNorm_1": _ln_init(c),
+            }
+        p["Conv_1"] = _conv_init(next(keys), 1, c, HEAD_CHANNELS)
+        p["LayerNorm_1"] = _ln_init(HEAD_CHANNELS)
+        p["Dense_0"] = _dense_init(next(keys), flat, n * n)
+        p["Conv_2"] = _conv_init(next(keys), 1, c, HEAD_CHANNELS)
+        p["LayerNorm_2"] = _ln_init(HEAD_CHANNELS)
+        p["Dense_1"] = _dense_init(next(keys), flat, VALUE_HIDDEN)
+        p["LayerNorm_3"] = _ln_init(VALUE_HIDDEN)
+        # ZERO-initialised value output: see apply()
+        p["Dense_2"] = _dense_init(None, VALUE_HIDDEN, 1, zero=True)
+        return {"params": p}
+
+    def apply(self, params, obs) -> Tuple[jnp.ndarray, jnp.ndarray]:
+        """obs [B, 12, N, N-2] -> (logits [B, N*N] f32, value [B] f32)."""
+        p, dt = params["params"], self.dtype
+        x = jnp.transpose(obs, (0, 2, 3, 1)).astype(dt)
+        x = jax.nn.relu(_layer_norm(p["LayerNorm_0"],
+                                    _conv(p["Conv_0"], x, dt), dt))
+        for i in range(self.blocks):
+            b = p[f"ResBlock_{i}"]
+            y = _conv(b["Conv_0"], x, dt)
+            y = jax.nn.relu(_layer_norm(b["LayerNorm_0"], y, dt))
+            y = _layer_norm(b["LayerNorm_1"], _conv(b["Conv_1"], y, dt), dt)
+            x = jax.nn.relu(x + y)
 
         # policy head: action space is board_size**2 (incl. never-legal
         # corners, reference twixt.h:122-124); caller masks illegal logits.
-        p = nn.Conv(32, (1, 1), dtype=self.dtype)(x)
-        p = nn.relu(nn.LayerNorm(dtype=self.dtype)(p))
-        p = p.reshape((p.shape[0], -1))
-        logits = nn.Dense(self.board_size * self.board_size,
-                          dtype=self.dtype)(p)
+        h = _conv(p["Conv_1"], x, dt)
+        h = jax.nn.relu(_layer_norm(p["LayerNorm_1"], h, dt))
+        logits = _dense(p["Dense_0"], h.reshape((h.shape[0], -1)), dt)
 
         # value head.  The final layers run in f32 with a LayerNorm and a
-        # ZERO-initialised output kernel (NOTE: this round-3 fix changed
-        # the checkpoint parameter tree — checkpoints saved before it do
-        # not restore, accepted because pre-fix checkpoints carry the
-        # saturated head anyway): outcome targets are almost always
+        # ZERO-initialised output kernel: outcome targets are almost always
         # +-1, and without this the bf16 tanh saturates early in training
         # (|pre-activation| > 8 makes 1 - tanh^2 EXACTLY 0 in bf16), after
-        # which the head is frozen at a constant +-1 forever — observed as
-        # value MSE ~1.9 with zero output variance while the policy head
-        # kept learning (round-3 training runs).  Zero-init starts the
-        # output at tanh's maximum-gradient point and the norm bounds the
-        # feature scale the kernel multiplies.
-        v = nn.Conv(32, (1, 1), dtype=self.dtype)(x)
-        v = nn.relu(nn.LayerNorm(dtype=self.dtype)(v))
-        v = v.reshape((v.shape[0], -1))
-        v = nn.relu(nn.Dense(256, dtype=self.dtype)(v))
-        v = nn.LayerNorm(dtype=jnp.float32)(v.astype(jnp.float32))
-        value = jnp.tanh(
-            nn.Dense(
-                1, dtype=jnp.float32, kernel_init=nn.initializers.zeros
-            )(v)
-        )[:, 0]
-
-        return logits.astype(jnp.float32), value.astype(jnp.float32)
+        # which the head is frozen at a constant +-1 forever.  Zero-init
+        # starts the output at tanh's maximum-gradient point and the norm
+        # bounds the feature scale the kernel multiplies.  The f32 output
+        # layer asks for full f32 precision so it never runs in TF32.
+        v = _conv(p["Conv_2"], x, dt)
+        v = jax.nn.relu(_layer_norm(p["LayerNorm_2"], v, dt))
+        v = jax.nn.relu(_dense(p["Dense_1"], v.reshape((v.shape[0], -1)), dt))
+        v = _layer_norm(p["LayerNorm_3"], v, jnp.float32)
+        value = jnp.tanh(_dense(p["Dense_2"], v, jnp.float32,
+                                precision=lax.Precision.HIGHEST))[:, 0]
+        return logits.astype(jnp.float32), value
 
 
 def create_net(board_size: int, channels: int = 128, blocks: int = 6,
                dtype=jnp.bfloat16):
     """``dtype`` sets the compute dtype (params stay f32).  bf16 is the
-    production setting (MXU); f32 exists for numerical pins that need
-    reduction-shape-independent results (tests/test_sharding.py)."""
+    production setting (tensor cores); f32 exists for numerical pins that
+    need reduction-shape-independent results (tests/test_sharding.py)."""
     return AZNet(board_size=board_size, channels=channels, blocks=blocks,
                  dtype=dtype)
 
 
-def init_params(net: AZNet, key, batch: int = 1):
-    n = net.board_size
-    obs = jnp.zeros((batch, geo.NUM_PLANES, n, n - 2), jnp.float32)
-    return net.init(key, obs)
+def init_params(net: AZNet, key):
+    return net.init(key)
 
 
 def masked_policy(logits: jnp.ndarray, legal_mask: jnp.ndarray):

@@ -43,20 +43,18 @@ class Sample(NamedTuple):
 
     ``obs`` is the FULL wire in one array ([T, B, 12*P] u32 column words,
     ~1 bit/cell): the 12 packed observation planes
-    (ops/observe.bit_observation_packed, trailing dims coalesced so the
-    scan's per-step writes use all 128 lanes) with the MOVER's packed
-    LEGAL-action plane riding in the words' free low bits
-    (ops/observe.bit_observation_packed_with_legal) — 16-32x less HBM
+    (ops/observe.bit_observation_packed, trailing dims coalesced so each
+    step writes one dense block) with the MOVER's packed LEGAL-action
+    plane riding in the words' free low bits
+    (ops/observe.bit_observation_packed_with_legal) — 16-32x fewer bytes
     than the unpacked bf16 tensor.  The policy loss needs the legal plane
     to normalise its cross-entropy over the legal set rather than the
     visit support (a zero-visit legal action must still receive gradient
     through the softmax denominator — round-3's support-normalised CE
     never penalised probability piled on unvisited legal moves, a
     board-12 training bug).  Riding it in the free bits keeps the wire a
-    SINGLE scan output: a second [T, B, P] output pads P onto 128 lanes
-    per step (42.7 -> 36.1M env-steps/s at config 4, round 4's wire) and
-    a 13-plane concat breaks the dense write fusion entirely (13M) —
-    scripts/perf_obs_wire.py.  The learner decodes observations with
+    SINGLE scan output with no extra bytes (scripts/perf_obs_wire.py
+    times it against a second [T, B, P] output and a 13-plane concat).  The learner decodes observations with
     ``unpack_observation_nchw`` (reads only live bits, unaffected by the
     stowaways) fused into its input transpose, and the legal mask with
     ``legal_words_from_obs`` + ``unpack_legal_words_flat`` (loss_fn);
@@ -149,8 +147,7 @@ def selfplay_chunk(
             bs, key = carry
         key, k_search, k_act = jax.random.split(key, 3)
         # one [B, 12*P] wire: obs planes + the mover's legal plane in the
-        # free low bits (a second scan output or a 13th plane both lose
-        # throughput — see the Sample docstring)
+        # free low bits (see the Sample docstring)
         obs = bit_observation_packed_with_legal(bs, board_size)
         player = jnp.clip(bs.current_player, 0, 1)
 
@@ -399,8 +396,8 @@ def accumulate_grads(params, net_apply, sample: Sample, *, val_denom,
     by K reproduces the full-batch gradient up to float re-association.
     The point is MEMORY: the net's activations exist for one slice at a
     time instead of the whole T*B frame batch — board 24's chunk-56
-    train step needs 16.95G of HBM monolithic (OOM on a 15.75G chip)
-    but fits with microbatch=4.  Pinned against the monolithic step by
+    train step needed 16.95 GB monolithic, more than a 16 GB card holds,
+    and fits there with microbatch=4.  Pinned against the monolithic step by
     tests/test_models.py::test_train_microbatch_matches_monolithic.
     """
     if microbatch == 1:

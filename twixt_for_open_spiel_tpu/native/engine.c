@@ -1,6 +1,6 @@
 /* Native host-runtime TwixT engine (C, loaded via ctypes).
  *
- * The TPU compute path of this framework is compiled XLA (ops/); this file
+ * The device compute path of this framework is compiled XLA (ops/); this file
  * is the native *host* engine — the runtime analogue of the reference's C++
  * board engine (twixtboard.cc) for single-state, host-driven play: fast
  * interactive stepping, host-side rollouts, and deep randomized

@@ -5,11 +5,11 @@ stays the parity/oracle-tested reference), but with every board-shaped
 bool/bitmask field packed into uint32 *bitplanes*: ``plane[x]`` is a word
 whose bit ``y`` is cell ``(x, y)`` of the padded board (P = size + 2*PAD
 <= 30 bits, so one word per column).  Arrays are [P, *B] instead of
-[P, P, *B] — the env batch stays in the TPU lane dimension and every
+[P, P, *B] — the env batch stays the minor dimension and every
 whole-board probe of the link-placement rule (8 same-color neighbor tests +
 8x9 crossing-link probes, reference twixtboard.cc:501-571) processes P words
-per env instead of P*P bytes: ~6x fewer VPU lane-elements and HBM bytes per
-pass on the headline board size.
+per env instead of P*P bytes: ~6x fewer elements and bytes per pass on the
+headline board size.
 
 What stays unpacked: the union-find component board ``compid`` (int16, as in
 ops/step.py but restricted to the inner board-size region — the halo never
@@ -20,7 +20,8 @@ Action sampling replaces the f32 Gumbel-max over [A, *B] with exact
 popcount-rank selection on the legal bitplane: draw k uniform in
 [0, popcount), walk the column cumsum, then binary-search the k-th set bit —
 a handful of [P, *B]/[*B] integer ops, no transcendentals, no f32 boards.
-RNG is the same counter-based SplitMix hash as ops/fused_bit_rollout.py.
+RNG is a counter-based SplitMix hash (:func:`step_noise`), so a rollout is
+the same bits on every backend.
 
 Equivalence with the canonical engine is pinned by tests/test_bitboard.py:
 random games stepped through both engines must match bit-for-bit on every
@@ -104,14 +105,11 @@ class BitState(NamedTuple):
 def _pack_bool(board: jnp.ndarray) -> jnp.ndarray:
     """[P, P, *B] bool -> [P, *B] u32 bitplane (bit y = board[x, y]).
 
-    The bit weights are built with broadcasted_iota at full rank (no
-    reshape) so the same code lowers inside Pallas kernels
-    (ops/fused_bit_rollout.py); XLA constant-folds it either way.
+    XLA constant-folds the bit weights.
     """
     p = board.shape[1]
     assert p <= 31, "bit index must fit a non-negative int32"
-    # int32 accumulation (bit weights stay below 2^31): Mosaic has no
-    # unsigned reductions
+    # int32 accumulation (bit weights stay below 2^31)
     ybits = jnp.int32(1) << jax.lax.broadcasted_iota(
         jnp.int32, (1, p) + (1,) * (board.ndim - 2), 1
     )
@@ -267,8 +265,7 @@ def _onehot_bits(action, board_size: int) -> jnp.ndarray:
 def _any_bits(plane: jnp.ndarray) -> jnp.ndarray:
     """[P, *B] -> [*B] bool: any bit set.
 
-    Reduced as 0/1 int32 (not a u32 max): Mosaic has no unsigned reductions,
-    and XLA fuses the compare into the reduce either way.
+    Reduced as 0/1 int32; XLA fuses the compare into the reduce.
     """
     return jnp.max(jnp.where(plane != 0, 1, 0), axis=0) != 0
 
@@ -323,7 +320,7 @@ def step_bits(bs: BitState, board_size: int, action) -> BitState:
 
     def xrow(plane, row):
         """Word at board row ``row`` ([*B] int32) of a u32 plane — int32
-        accumulation (bit weights < 2^31; Mosaic has no unsigned reduces)."""
+        accumulation (bit weights < 2^31)."""
         return jnp.max(
             jnp.where(xs_p == row, plane.astype(jnp.int32), 0), axis=0
         ).astype(_U32)
@@ -421,7 +418,7 @@ def step_bits(bs: BitState, board_size: int, action) -> BitState:
 
     ys_row = jax.lax.broadcasted_iota(
         jnp.int32, (1, n) + (1,) * bdims, 1
-    )  # iota at rank, not expand_dims: lowers inside Pallas kernels too
+    )
     me_inner = (xs == px) & (ys_row == py)
     hit = me_inner
     for cid in cids:
@@ -431,8 +428,7 @@ def step_bits(bs: BitState, board_size: int, action) -> BitState:
     # stamp the merged flag byte on the whole united component: pack the hit
     # board into a bitplane once, then or it into the set flag bits
     # pack the inner hit board into a full padded bitplane [P, *B]
-    # (int32 accumulation: bit weights < 2^31 and Mosaic has no unsigned
-    # reductions)
+    # (int32 accumulation: bit weights < 2^31)
     ybits = jnp.int32(1) << (
         jax.lax.broadcasted_iota(jnp.int32, (1, n) + (1,) * bdims, 1)
         + geo.PAD
@@ -520,6 +516,15 @@ def _hash_u32(x: jnp.ndarray) -> jnp.ndarray:
     return x
 
 
+def step_noise(seed, i, env) -> jnp.ndarray:
+    """u32 sampling noise of step ``i`` for env ids ``env``: a counter-based
+    hash of (seed, step), decorrelated across envs; the same bits on every
+    backend."""
+    return _hash_u32(
+        seed + _U32(2654435761) * (i.astype(_U32) + _U32(1))
+    ) + env * _U32(0x9E3779B9)
+
+
 def _select_kth_bit(w: jnp.ndarray, k: jnp.ndarray) -> jnp.ndarray:
     """Position of the (k+1)-th lowest set bit of u32 ``w`` (vectorised)."""
     pos = jnp.zeros_like(k)
@@ -592,7 +597,8 @@ def bit_random_rollout(seed, board_size: int, num_steps: int, bs: BitState):
     """Lockstep random rollout on the bitboard engine (cf. ops/rollout.py).
 
     ``seed`` is a u32/int scalar; per-(step, env) randomness comes from the
-    counter-based hash, bit-identical on TPU and CPU.
+    counter-based hash (:func:`step_noise`), bit-identical on the GPU and
+    the CPU (chip_smoke.py phase b).
     """
     batch_shape = bs.current_player.shape
     nenv = 1
@@ -603,9 +609,7 @@ def bit_random_rollout(seed, board_size: int, num_steps: int, bs: BitState):
 
     def body(i, carry):
         bs, episodes, results = carry
-        noise = _hash_u32(
-            seed + _U32(2654435761) * (i.astype(_U32) + _U32(1))
-        ) + env * _U32(0x9E3779B9)
+        noise = step_noise(seed, i, env)
         actions = sample_bits(bs, board_size, noise)
         nxt, done, result = bit_step_auto_reset(bs, actions, board_size)
         episodes = episodes + jnp.sum(done, dtype=jnp.int32)
@@ -629,7 +633,8 @@ def bit_rollout_emit_obs(
 ):
     """Lockstep random rollout emitting the observation tensor at EVERY step
     — the learner-feed workload (BASELINE config 4): each step's observation
-    is materialised to HBM exactly as a learner consumer would read it,
+    is materialised to device memory exactly as a learner consumer would
+    read it,
     batch-leading, in bfloat16 (the learner's input dtype; planes are
     binary so bf16 is exact — models/network.py casts to bf16 regardless).
 
@@ -640,23 +645,19 @@ def bit_rollout_emit_obs(
 
     With ``packed=True`` ``obs`` is the exact-but-compressed packed
     encoding instead — ONE array ``[T, B, 12*P]`` of u32 column words
-    (~1 bit/cell, 16-32x fewer HBM bytes than bf16): the observation
+    (~1 bit/cell, 16-32x fewer bytes than bf16): the observation
     planes with the mover's packed LEGAL plane riding in the words' free
     low bits (ops/observe.bit_observation_packed_with_legal) — the full
-    self-play wire (models/selfplay.Sample).  A SECOND scan output for
-    the legal words (the round-4 wire) pads its [B, P] per-step write
-    onto 128 lanes (42.7 -> 36.1M env-steps/s) and a 13-plane concat
-    loses the dense write fusion entirely (13M) —
-    scripts/perf_obs_wire.py.  The learner decodes the obs words with
+    self-play wire (models/selfplay.Sample), one scan output with no
+    extra bytes for the legal plane (scripts/perf_obs_wire.py compares
+    the alternatives).  The learner decodes the obs words with
     ``reshape(T, B, 12, P)`` + ``ops.observe.unpack_observation_nchw``
     fused into its input transpose and the legal mask with
     ``ops.observe.legal_words_from_obs`` +
     ``ops.observe.unpack_legal_words_flat``.  Both decodes are pinned
     bit-exact (tests/test_bitboard.py, tests/test_models.py).  The
-    trailing dims are COALESCED into one: measured on v5e at the
-    config-4 shape, the 3-D [B, 12, P] form leaves only P of 128 lanes
-    live in the scan's per-step output writes (~14M env-steps/s) while
-    the coalesced form writes dense (~39M; scripts/perf_obs_emit.py).
+    trailing dims are COALESCED into one, so each step writes one dense
+    [B, 12*P] block (scripts/perf_obs_emit.py compares the 3-D form).
     """
     from twixt_for_open_spiel_tpu.ops.observe import (
         bit_observation_nchw,
@@ -675,9 +676,7 @@ def bit_rollout_emit_obs(
             obs = bit_observation_packed_with_legal(bs, board_size)
         else:
             obs = bit_observation_nchw(bs, board_size, jnp.bfloat16)
-        noise = _hash_u32(
-            seed + _U32(2654435761) * (i.astype(_U32) + _U32(1))
-        ) + env * _U32(0x9E3779B9)
+        noise = step_noise(seed, i, env)
         actions = sample_bits(bs, board_size, noise)
         nxt, done, _ = bit_step_auto_reset(bs, actions, board_size)
         return (nxt, episodes + jnp.sum(done, dtype=jnp.int32)), obs

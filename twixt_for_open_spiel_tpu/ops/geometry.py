@@ -1,6 +1,6 @@
 """Static geometry tables for the TwixT engine, built with numpy at import time.
 
-TPU-native equivalent of the reference's L1 primitives (C1/C2/C4/C5 in
+Array-program equivalent of the reference's L1 primitives (C1/C2/C4/C5 in
 SURVEY.md §2): the ``Compass`` directions (reference twixtcell.h:58-68), the
 link-descriptor crossing table (reference twixtboard.cc:38-144) and the
 ``BlockerMap`` (reference twixtboard.h:142-151).
@@ -14,7 +14,7 @@ direction, symmetry under direction reversal, exact offset sets).
 
 Everything here is plain numpy computed once at import; jitted code closes
 over the resulting constant arrays, so XLA folds them into the compiled
-executable (the TPU analogue of the reference's static C++ tables).
+executable (the analogue of the reference's static C++ tables).
 
 Coordinate conventions (reference twixtboard.h:153-213):
   * the board is ``size x size`` cells, ``x`` = column (points right),

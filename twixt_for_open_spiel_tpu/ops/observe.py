@@ -1,6 +1,6 @@
 """Observation-tensor emission: 12 planes x size x (size-2), CHW.
 
-TPU-native equivalent of TwixTState::ObservationTensor /
+Array-program equivalent of TwixTState::ObservationTensor /
 SetPegAndLinksOnTensor (reference twixt.cc:76-132) and GetTensorPosition
 (reference twixtboard.cc:590-597).  The reference's per-cell scatter loop
 becomes pure bit-unpacking + flips/slices: the coordinate remaps are static
@@ -9,7 +9,7 @@ program with no gather/scatter.
 
 Batch-polymorphic like ops/step.py: board leaves may carry trailing env
 batch dims, giving [12, size, size-2, *B] outputs with the env batch still
-in the TPU lane dimension.  ``observation_nchw`` converts to the
+the minor ("lane-major") dimension.  ``observation_nchw`` converts to the
 batch-leading layout the network consumes.
 
 Plane semantics (identical for both observing players):
@@ -140,8 +140,7 @@ def bit_observation(bs, board_size: int, dtype=jnp.float32) -> jnp.ndarray:
 @functools.partial(jax.jit, static_argnums=(1,))
 def bit_observation_packed_lanes(bs, board_size: int) -> jnp.ndarray:
     """Observation as PACKED u32 column words in the ENGINE's lane-major
-    layout: [12, P, B] (env batch trailing = TPU lanes, zero physical
-    padding on the minor dim).
+    layout: [12, P, B] (env batch trailing).
 
     The cheapest possible materialisation of the observation — pure
     bitwise ops on the engine's bitplanes, NO cross-layout transpose: that
@@ -154,10 +153,6 @@ def bit_observation_packed_lanes(bs, board_size: int) -> jnp.ndarray:
     :func:`unpack_observation_nchw` (or use
     :func:`unpack_observation_lanes_nchw`).  Plane semantics match the
     reference's tensor emission exactly (twixt.cc:76-132).
-
-    NOTE: ops/fused_bit_rollout._packed_obs_planes emits the same 12
-    planes inside the Pallas kernel; keep the two in sync (the pair is
-    pinned bit-equal by tests/test_fused_bit.py).
     """
     from twixt_for_open_spiel_tpu.ops.bitboard import expand_planes
 
@@ -179,11 +174,9 @@ def bit_observation_packed_lanes(bs, board_size: int) -> jnp.ndarray:
 # for n <= 24, leaving the LOW PAD=3 bits of every plane word free.  The
 # mover's legal word for a column (n live bits) is split into 3-bit
 # chunks carried by planes 0..7 of the same column — 8 planes x 3 bits =
-# 24 bits >= n.  This keeps the wire a SINGLE [B, 12*P] scan output: the
-# round-4 form (legal as a second scan output) cost 42.7 -> 36.1M
-# env-steps/s because the second output's [B, P] per-step write pads P
-# onto 128 lanes, and any CONCAT into one output (13 planes) broke the
-# dense write fusion entirely (13M; scripts/perf_obs_wire.py).
+# 24 bits >= n.  This keeps the wire a SINGLE [B, 12*P] scan output with
+# no extra bytes (scripts/perf_obs_wire.py times it against a second
+# legal output and a 13-plane concat).
 _LEGAL_CHUNK_BITS = 3
 _LEGAL_CHUNK_PLANES = 8
 assert _LEGAL_CHUNK_BITS == geo.PAD

@@ -3,17 +3,17 @@ masked random policies.
 
 This is the framework component the reference does not have (SURVEY.md §2,
 "Batched env vectorization"): thousands of games stepping in lockstep on one
-chip, the unit that `parallel/` shards across a device mesh.  The reference's
+device, the unit that `parallel/` shards across a device mesh.  The reference's
 random-sim driver loop (RandomSimTest, twixt_test.cc:28) becomes a
 ``lax.fori_loop`` over the batch-polymorphic transition.
 
 Layout: the env batch is the TRAILING axis of every board-shaped leaf
 (``[P, P, B]``; scalar fields are ``[B]``) and ``ops/step.py`` consumes that
 layout natively — deliberately NOT via ``vmap``, which moves the mapped axis
-to the front of every intermediate and would put the P(=14..30)-sized board
-dim in the TPU's 128-wide lane slot (measured ~100x HBM-traffic blowup:
-927MB accessed/step vs ~9MB live state at board_size=12, batch=4096).
-With batch minor, every whole-board op tiles perfectly for any board size.
+to the front of every intermediate and makes the P(=11..30)-sized board dims
+minor.  With batch minor, neighbouring envs of one board cell sit next to
+each other in memory, so every whole-board op reads and writes contiguous
+runs of the batch whatever the board size.
 """
 
 from __future__ import annotations

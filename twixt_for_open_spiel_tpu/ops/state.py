@@ -1,6 +1,6 @@
 """TwixT game state as a fixed-shape JAX pytree + ``reset``.
 
-TPU-native equivalent of the reference's ``Cell`` grid and ``Board``
+Array-program equivalent of the reference's ``Cell`` grid and ``Board``
 construction (C3/C6 in SURVEY.md §2; reference twixtcell.h:70-109,
 twixtboard.cc:168-276).  Struct-of-arrays instead of array-of-structs: each
 per-cell field of the C++ ``Cell`` becomes one board-shaped tensor, so the
@@ -83,42 +83,26 @@ def padded_size(board_size: int) -> int:
     return board_size + 2 * geo.PAD
 
 
-def board_consts(board_size: int, bshape=()):
-    """The per-size constant boards, built from broadcasted_iota in jnp.
+def board_consts(board_size: int):
+    """The per-size constant boards, built from iotas in jnp.
 
     Semantically identical to :func:`geometry.board_masks` (which stays the
-    numpy reference, cross-checked in tests) but expressed as traced ops so
-    the same construction works inside Pallas kernels, where captured array
-    constants are not allowed; under jit XLA constant-folds it all anyway.
+    numpy reference, cross-checked in tests); under jit XLA constant-folds
+    it all.
 
-    ``bshape`` appends trailing (broadcast) batch dims — everything is built
-    directly at the target rank with broadcasted_iota, because Mosaic cannot
-    reshape/stack to add unit dims.
-
-    Returns dict with [P, P, *bshape] arrays: init_color (i32), init_compid
-    (i32), init_flags (i32) and legal (bool [2, P, P, *bshape]).
+    Returns dict with [P, P] arrays: init_color (i32), init_compid (i32),
+    init_flags (i32) and legal (bool [2, P, P]).
     """
-    import jax
-
     n = board_size
     p = padded_size(n)
-
-    def grid(shape, dim):
-        return jax.lax.broadcasted_iota(jnp.int32, shape, dim)
-
-    shape = (p, p) + tuple(bshape)
-    xs = grid(shape, 0) - geo.PAD
-    ys = grid(shape, 1) - geo.PAD
+    xs = jnp.arange(p, dtype=jnp.int32)[:, None] - geo.PAD
+    ys = jnp.arange(p, dtype=jnp.int32)[None, :] - geo.PAD
     in_bounds = (xs >= 0) & (xs < n) & (ys >= 0) & (ys < n)
     x_edge = (xs == 0) | (xs == n - 1)
     y_edge = (ys == 0) | (ys == n - 1)
-    corner = in_bounds & x_edge & y_edge
-    on_board = in_bounds & ~corner
+    on_board = in_bounds & ~(x_edge & y_edge)
 
-    # computed entirely in int32/bool — Mosaic v5e has no 8/16-bit vector
-    # ops, so sub-32-bit intermediates must not appear inside kernels;
-    # reset() narrows to the storage dtypes outside the kernel.
-    flags = jnp.zeros(shape, jnp.int32)
+    flags = jnp.zeros((p, p), jnp.int32)
     for cond, player, border in (
         (xs == 0, geo.BLUE, geo.BORDER_START),
         (xs == n - 1, geo.BLUE, geo.BORDER_END),
@@ -129,18 +113,8 @@ def board_consts(board_size: int, bshape=()):
             on_board & cond, geo.flag_bit(player, border), 0
         )
 
-    # the [2, ...] legal planes, built at rank (no stack: Mosaic again)
-    shape2 = (2,) + shape
-    q = grid(shape2, 0)
-    xs2 = grid(shape2, 1) - geo.PAD
-    ys2 = grid(shape2, 2) - geo.PAD
-    in2 = (xs2 >= 0) & (xs2 < n) & (ys2 >= 0) & (ys2 < n)
-    xe2 = (xs2 == 0) | (xs2 == n - 1)
-    ye2 = (ys2 == 0) | (ys2 == n - 1)
-    on2 = in2 & ~(xe2 & ye2)
-    # pure bool algebra (a select with boolean branches won't lower in
-    # Mosaic): plane 0 forbids the x borders, plane 1 the y borders
-    legal = on2 & ~(((q == 0) & xe2) | ((q == 1) & ye2))
+    # plane 0 forbids the x borders, plane 1 the y borders
+    legal = jnp.stack([on_board & ~x_edge, on_board & ~y_edge])
 
     return {
         "legal": legal,
@@ -152,39 +126,28 @@ def board_consts(board_size: int, bshape=()):
     }
 
 
-def reset(board_size: int, wide: bool = False, bshape=()) -> State:
+def reset(board_size: int) -> State:
     """Start-of-game state (reference Board ctor, twixtboard.cc:168-174).
 
     Pure function of the static board size; the expensive per-cell init loops
     of the reference (InitializeCells / InitializeNeighbors /
     InitializeBlockerMap, twixtboard.cc:209-276) collapse into trace-time
     constant-table construction.
-
-    ``wide=True`` keeps the cell arrays and masks in int32 — the dtype
-    layout used inside the Pallas fused rollout kernel, where 8/16-bit
-    vectors are unsupported.  ``bshape`` appends trailing broadcast batch
-    dims (built at rank; Mosaic cannot reshape to add unit dims).
     """
-    consts = board_consts(board_size, bshape)
+    consts = board_consts(board_size)
     p = padded_size(board_size)
-    bshape = tuple(bshape)
-    cell_dt = jnp.int32 if wide else None
-
-    def scalar(v, dt=jnp.int32):
-        return jnp.full(bshape, v, dt) if bshape else jnp.asarray(v, dt)
-
     return State(
-        color=consts["init_color"].astype(cell_dt or jnp.int8),
-        links=jnp.zeros((p, p) + bshape, dtype=cell_dt or jnp.uint8),
-        blocked=jnp.zeros((p, p) + bshape, dtype=cell_dt or jnp.uint8),
-        compid=consts["init_compid"].astype(cell_dt or jnp.int16),
-        flags=consts["init_flags"].astype(cell_dt or jnp.uint8),
-        legal=consts["legal"].astype(jnp.int32 if wide else bool),
-        current_player=scalar(geo.RED),
-        move_counter=scalar(0),
-        move_one=scalar(-1),
-        swapped=scalar(0) if wide else scalar(False, bool),
-        result=scalar(geo.RESULT_OPEN),
+        color=consts["init_color"].astype(jnp.int8),
+        links=jnp.zeros((p, p), dtype=jnp.uint8),
+        blocked=jnp.zeros((p, p), dtype=jnp.uint8),
+        compid=consts["init_compid"].astype(jnp.int16),
+        flags=consts["init_flags"].astype(jnp.uint8),
+        legal=consts["legal"],
+        current_player=jnp.asarray(geo.RED, jnp.int32),
+        move_counter=jnp.asarray(0, jnp.int32),
+        move_one=jnp.asarray(-1, jnp.int32),
+        swapped=jnp.asarray(False),
+        result=jnp.asarray(geo.RESULT_OPEN, jnp.int32),
     )
 
 
@@ -209,18 +172,14 @@ def onehot_board(action, board_size: int) -> jnp.ndarray:
     """Bool [P,P,*B] mask, True exactly at each env's action cell.
 
     Batch-polymorphic: ``action`` may be a scalar (single env) or carry
-    trailing batch dims — board ops keep the batch on the *minor* axes so
-    the TPU lane dimension is the env batch (see ops/rollout.py).
+    trailing batch dims — board ops keep the batch on the *minor* axes (see
+    ops/rollout.py).
     """
-    import jax
-
     p = padded_size(board_size)
     x, y = action_to_xy(action, board_size)
     bshape = (1,) * jnp.ndim(x)
-    # broadcasted_iota (not 1-D arange) so the same code lowers through
-    # Mosaic inside the Pallas fused rollout kernel
-    xs = jax.lax.broadcasted_iota(jnp.int32, (p, 1) + bshape, 0)
-    ys = jax.lax.broadcasted_iota(jnp.int32, (1, p) + bshape, 1)
+    xs = jnp.arange(p, dtype=jnp.int32).reshape((p, 1) + bshape)
+    ys = jnp.arange(p, dtype=jnp.int32).reshape((1, p) + bshape)
     return (xs == x + geo.PAD) & (ys == y + geo.PAD)
 
 

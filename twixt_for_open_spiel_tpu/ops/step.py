@@ -1,6 +1,6 @@
 """Branch-free TwixT state transition: ``step(state, action)``.
 
-TPU-native re-expression of the reference's hot path (SURVEY.md §3c):
+Array-program re-expression of the reference's hot path (SURVEY.md §3c):
 ``Board::ApplyAction`` / ``SetPegAndLinks`` / ``ExploreLocalGraph`` /
 ``UpdateResult`` (reference twixtboard.cc:457-588,192-207) plus the turn /
 terminal logic of ``TwixTState::DoApplyAction`` (reference twixt.h:93-104).
@@ -17,19 +17,17 @@ Design: everything is whole-board elementwise tensor algebra over the padded
     an id (the action index of one of its pegs) and a flag byte in a
     [size*size] side table.  Placing a peg merges <= 8 neighbor components
     by comparing the whole compid board against <= 8 scalars — no
-    data-dependent loop at all.  (A first implementation used masked
-    flood-fill under ``lax.while_loop``; its per-iteration sync made it
-    ~1000x slower than the static program on a v5e chip.)
+    data-dependent loop at all (a masked flood-fill under
+    ``lax.while_loop`` needs a data-dependent number of iterations per
+    step).
   * the swap rule is a ``where`` select, no Python branching.
 
 All operations are batch-polymorphic with TRAILING env batch dims: board
 leaves are [P, P, *B], scalars [*B], reductions run over axes (0, 1) and
 broadcasts align on the trailing axes.  ``step`` is therefore called
 directly on batched state — no ``vmap`` — so the env batch stays the
-minor-most (TPU lane) dimension of every intermediate.  (vmap moves the
-mapped axis to the front internally, which put the 14..30-wide board dim in
-the 128-lane slot and cost ~100x in wasted HBM traffic: 927MB accessed per
-step vs ~9MB of live state at board_size=12, batch=4096.)
+minor-most dimension of every intermediate (vmap would move the mapped axis
+to the front internally and make the 11..30-wide board dims minor).
 
 Correctness note on the merge: every live component id is the action index
 of a peg currently in that component (ids start as cell indices, merges take
@@ -59,8 +57,7 @@ from twixt_for_open_spiel_tpu.ops.state import (
 )
 
 _U8 = jnp.uint8
-_BIG = 1 << 20  # sentinel larger than any component id (python int: a
-# module-level jnp scalar would be a captured constant inside Pallas)
+_BIG = 1 << 20  # sentinel larger than any component id
 
 
 def _shift(arr: jnp.ndarray, dx: int, dy: int) -> jnp.ndarray:
@@ -68,10 +65,7 @@ def _shift(arr: jnp.ndarray, dx: int, dy: int) -> jnp.ndarray:
 
     Safe because every use is masked to cells whose shifted source index is
     within the PAD halo (|dx|, |dy| <= PAD), where wrap-around never occurs.
-    Written as concat-of-slices (== jnp.roll for static shifts) so the same
-    code lowers both through XLA and through Mosaic inside the Pallas fused
-    rollout kernel (scripts/archive_fused_tensor_rollout.py; the production
-    fused kernel is ops/fused_bit_rollout.py).
+    Written as concat-of-slices (== jnp.roll for static shifts).
     """
     if dx:
         arr = jnp.concatenate([arr[dx:], arr[:dx]], axis=0)
@@ -91,9 +85,7 @@ def _link_updates(color, links, me, player_c):
     peg so they can never cross each other, making the direction loop
     order-independent — all probes read the pre-move ``links``.
     """
-    # constants follow the array dtypes: the XLA path stores uint8, the
-    # Pallas kernel carries int32 (Mosaic has no 8-bit vectors) — the same
-    # code serves both.
+    # constants follow the array dtype of ``links``
     lt = links.dtype
 
     def bit(v):
@@ -131,8 +123,8 @@ def _merge_components(compid, flags, me, eff, new_links):
 
     No gathers, no scatters, no loops: the per-env scalars (neighbor
     component ids, merged flag byte) are extracted with one-hot masked
-    whole-board reductions — per-lane dynamic indexing lowers to slow
-    gathers on TPU, while masked reduces stay pure vector code.
+    whole-board reductions, which stay elementwise code over the batch
+    instead of per-env dynamic indexing.
 
     Returns (compid, flags, merged_flags) where ``merged_flags`` is the
     border-flag byte of the merged component — the exact value the reference
@@ -147,7 +139,7 @@ def _merge_components(compid, flags, me, eff, new_links):
         dx, dy = (int(v) for v in geo.OFFSETS[d])
         has_new = (new_links >> int(d)) & 1
         acc = acc | jnp.where(has_new != 0, _shift(flags, dx, dy), zero_f)
-    # reduce in int32 (Mosaic has no unsigned reductions), back to flags dtype
+    # reduce in int32, back to flags dtype
     nf = jnp.max(
         jnp.where(me, acc.astype(jnp.int32), 0), axis=(0, 1)
     ).astype(flags.dtype)
@@ -250,9 +242,7 @@ def step_impl(state: State, board_size: int, action) -> State:
     connected_end = ((nf32 >> (shift_amt + 1)) & 1) != 0
     win = connected_start & connected_end
     opp = 1 - player
-    # max()!=0 instead of any(): works for both the bool legal masks of the
-    # XLA path and the int32 masks inside the Pallas kernel, and avoids
-    # boolean select branches, which Mosaic cannot lower.
+    # any legal move left for the opponent, per env
     opp_legal = jnp.where(opp == 0, legal[0], legal[1])
     opp_has_legal = jnp.max(opp_legal.astype(jnp.int32), axis=(0, 1)) != 0
     result = jnp.where(
@@ -284,8 +274,7 @@ def step_impl(state: State, board_size: int, action) -> State:
     )
 
 
-# jitted public entry point; ``step_impl`` is the raw traceable function,
-# reused verbatim inside the Pallas fused rollout kernel.
+# jitted public entry point; ``step_impl`` is the raw traceable function.
 step = functools.partial(jax.jit, static_argnums=1)(step_impl)
 
 

@@ -4,8 +4,7 @@ Each device steps its local env shard completely independently (environments
 never communicate — the batch axis is embarrassingly parallel), so the only
 collectives are ``psum`` reductions of episode statistics over the env axis.
 This is the multi-host scaling component mandated by BASELINE.json:5,11;
-near-linear scaling follows because per-device work is constant in the mesh
-size.
+per-device work is constant in the mesh size.
 """
 
 from __future__ import annotations
@@ -74,25 +73,11 @@ def sharded_bit_reset(board_size: int, global_batch: int, mesh=None):
     return shard_env_pytree(bit_reset(board_size, global_batch), mesh)
 
 
-def make_sharded_bit_rollout(
-    board_size: int,
-    num_steps: int,
-    mesh=None,
-    fused_tile: int = 0,
-    interpret: bool = False,
-):
+def make_sharded_bit_rollout(board_size: int, num_steps: int, mesh=None):
     """jitted (seed, bitstate) -> (bitstate, stats) on the bitboard engine.
 
     The production throughput path; per-shard RNG streams are decorrelated
     by mixing the mesh position into the u32 counter seed.
-
-    ``fused_tile > 0`` runs the fused Pallas whole-rollout kernel
-    (ops/fused_bit_rollout.py, ~1.5x the XLA path on a v5e chip) on each
-    device's shard — one kernel per device, still zero cross-device traffic
-    during the rollout.  The per-device env count must then be divisible by
-    ``fused_tile`` (a multiple of 128).  ``interpret`` runs the kernel in
-    interpreter mode (CPU testing).  Trajectories are BIT-IDENTICAL either
-    way (tests/test_sharding.py pins fused == XLA on the virtual mesh).
     """
     mesh = mesh or make_env_mesh()
     state_spec = trailing_env_specs(bit_reset(board_size, 1))
@@ -107,21 +92,7 @@ def make_sharded_bit_rollout(
     def rollout_shard(seed, bs):
         idx = jax.lax.axis_index(ENV_AXIS).astype(jnp.uint32)
         seed = jnp.asarray(seed, jnp.uint32) + idx * jnp.uint32(0x01000193)
-        if fused_tile:
-            from twixt_for_open_spiel_tpu.ops.fused_bit_rollout import (
-                fused_bit_rollout,
-            )
-
-            bs, stats = fused_bit_rollout(
-                seed,
-                board_size,
-                num_steps,
-                bs,
-                tile=fused_tile,
-                interpret=interpret,
-            )
-        else:
-            bs, stats = bit_random_rollout(seed, board_size, num_steps, bs)
+        bs, stats = bit_random_rollout(seed, board_size, num_steps, bs)
         stats = {
             "episodes": jax.lax.psum(stats["episodes"], ENV_AXIS),
             "results": jax.lax.psum(stats["results"], ENV_AXIS),

@@ -3,8 +3,8 @@
 The "env shards feed a sharded learner" path of BASELINE.json:5,11: the
 self-play chunk runs env- and search-batched on each device's shard; the
 training step runs data-parallel on the same mesh with gradients psum-ed
-over the env axis.  All communication is XLA collectives over ICI/DCN — the
-TPU-native equivalent of the NCCL all-reduce a GPU framework would hand-roll.
+over the env axis.  All communication is XLA's collectives, which XLA hands
+to NCCL on the GPU; nothing is hand-rolled.
 """
 
 from __future__ import annotations

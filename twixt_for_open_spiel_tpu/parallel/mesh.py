@@ -1,15 +1,16 @@
 """Device-mesh construction helpers.
 
-The distributed-communication backend of this framework is XLA collectives
-over ICI/DCN expressed through ``jax.sharding`` (SURVEY.md §5, "Distributed
-communication backend") — nothing like NCCL/MPI is hand-written; the mesh is
-the entire transport configuration.
+The distributed-communication backend of this framework is XLA's
+collectives expressed through ``jax.sharding`` (SURVEY.md §5, "Distributed
+communication backend"); on the GPU XLA hands them to NCCL.  Nothing like
+NCCL/MPI is hand-written: the mesh is the entire transport configuration.
 
 Axis convention:
   * ``env``  — data parallelism over environment batch (and training batch).
-For multi-host pods the env axis is laid out hosts-major so that the large
-all-reduce segments ride ICI within a host and only the final combine
-crosses DCN (``create_hybrid_device_mesh``).
+The cards of one host are joined all to all by NVLink, so no ordering of
+them is better than another.  Across hosts the env axis is laid out
+hosts-major, so each host's shard is contiguous over its own cards and only
+the per-host partials of an all-reduce cross the network.
 """
 
 from __future__ import annotations
@@ -25,16 +26,16 @@ ENV_AXIS = "env"
 
 
 def hosts_major_order(devices: Sequence) -> list:
-    """Order devices hosts-major: each host's chips contiguous, hosts in
-    process order, chips in id order within a host.
+    """Order devices hosts-major: each host's cards contiguous, hosts in
+    process order, cards in id order within a host.
 
-    For a 1-D env mesh this is exactly the hybrid ICI/DCN layout
+    For a 1-D env mesh this is the hybrid layout
     (``mesh_utils.create_hybrid_device_mesh`` collapsed to one axis): a
     batch shard's big per-host segment is contiguous over the host's own
-    chips, so the env-axis collectives do their large combines over ICI and
-    only the per-host partials cross DCN.  Pure function of the device
-    list's ``(process_index, id)`` attributes so the multi-host path is
-    unit-testable without a pod (tests/test_sharding.py).
+    cards, so the env-axis collectives do their large combines over NVLink
+    and only the per-host partials cross the network.  Pure function of the
+    device list's ``(process_index, id)`` attributes so the multi-host path
+    is unit-testable without a cluster (tests/test_sharding.py).
     """
     return sorted(
         devices, key=lambda d: (d.process_index, d.id)
